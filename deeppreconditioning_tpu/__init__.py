@@ -1,15 +1,16 @@
-"""TPU-native learned-preconditioner framework.
+"""Learned-preconditioner framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
-jsappl/DeepPreconditioning (reference: /root/reference): sparse SPD linear
-systems -> sparse-conv CNN producing a lower-triangular factor L -> PCG with
-M = L @ L.T as preconditioner, benchmarked against vanilla / Jacobi / IC(0).
+jsappl/DeepPreconditioning: sparse SPD linear systems -> sparse-conv CNN
+producing a lower-triangular factor L -> PCG with M = L @ L.T as
+preconditioner, benchmarked against vanilla / Jacobi / IC(0).
 
-Layer map (TPU-first, bottom-up):
-    sparse/    static-shape sparse containers (batched COO, ELL, CSR) + ingest
-    ops/       compute kernels: SpMV (XLA + Pallas), sparse conv, tri-solve, IC(0)
+Layer map (bottom-up):
+    sparse/    static-shape sparse containers (batched COO, ELL, CSR, DIA)
+    ops/       compute kernels: SpMV, sparse conv, tri-solve, IC(0), FSAI,
+               multigrid (plain JAX; no hand-written kernel, PERF.md)
     solvers/   CG / PCG as lax.while_loop with on-device reductions
-    models/    Flax CNNs over precomputed conv index plans
+    models/    plain-JAX models (init/apply) over precomputed index plans
     data/      dataset generation (FVM pressure-Poisson, random SPD) + loaders
     train/     optax training loop, early stopping, checkpointing
     bench/     benchmark suite mirroring the reference's table schema
@@ -18,4 +19,8 @@ Layer map (TPU-first, bottom-up):
                factorizations), with pure-numpy fallbacks
 """
 
+from deeppreconditioning_tpu.runtime import configure_compile_cache
+
 __version__ = "0.1.0"
+
+configure_compile_cache()

@@ -4,17 +4,23 @@ Functional ports of the reference's four loss candidates
 (uibk/deep_preconditioning/metrics.py:13-100) over the framework's batched
 containers.  Sparse inputs arrive as (values, rows, cols, valid) bundles —
 the batched output of models/precond_net.py — or as BatchedCOO; densified
-paths pad n to an MXU-friendly multiple so the batched matmuls tile cleanly.
+paths pad n to a fixed multiple so the batched matmuls tile cleanly.
 
 All functions are jit/vmap/grad-safe.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
 from deeppreconditioning_tpu.sparse.coo import BatchedCOO, batched_coo_matvec
+
+# HIGHEST: a float32 contraction with no precision set may run in TF32 on
+# the GPU (about three decimal digits)
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def scatter_tril_dense(
@@ -54,9 +60,9 @@ def inverse_loss(
     The training objective of the reference (train.py:59; metrics.py:34-55):
     densify, M = L L^T, A = tril + strict-tril^T, mean_b ||M A - I||_F.
     """
-    m = jnp.einsum("bij,bkj->bik", l_dense, l_dense)
+    m = _einsum("bij,bkj->bik", l_dense, l_dense)
     a = symmetrize_tril(systems_tril_dense)
-    ma = jnp.einsum("bij,bjk->bik", m, a)
+    ma = _einsum("bij,bjk->bik", m, a)
     n = a.shape[-1]
     eye = jnp.eye(n, dtype=a.dtype)[None]
     return jnp.sqrt(jnp.sum((ma - eye) ** 2, axis=(1, 2))).mean()
@@ -86,9 +92,9 @@ def hutchinson_trace(
     a = symmetrize_tril(systems_tril_dense)
     b, n, _ = a.shape
     v = jax.random.normal(key, (b, n), a.dtype)
-    lv = jnp.einsum("bij,bj->bi", l_dense,
-                    jnp.einsum("bji,bj->bi", l_dense, v))
-    av = jnp.einsum("bij,bj->bi", a, v)
+    lv = _einsum("bij,bj->bi", l_dense,
+                    _einsum("bji,bj->bi", l_dense, v))
+    av = _einsum("bij,bj->bi", a, v)
     return jnp.linalg.norm(lv - av, axis=1).mean()
 
 
@@ -97,9 +103,9 @@ def condition_loss(
     l_dense: jax.Array,
 ) -> jax.Array:
     """Mean condition number of M A via singular values (metrics.py:80-100)."""
-    m = jnp.einsum("bij,bkj->bik", l_dense, l_dense)
+    m = _einsum("bij,bkj->bik", l_dense, l_dense)
     a = symmetrize_tril(systems_tril_dense)
-    ma = jnp.einsum("bij,bjk->bik", m, a)
+    ma = _einsum("bij,bjk->bik", m, a)
     sigmas = jnp.linalg.svd(ma, compute_uv=False)
     return (sigmas.max(axis=1) / sigmas.min(axis=1)).mean()
 
@@ -133,19 +139,19 @@ def pcg_residual_loss(
 
     def body(state, _):
         x, r, z, p = state
-        ap = jnp.einsum("bij,bj->bi", a, p)
+        ap = _einsum("bij,bj->bi", a, p)
         rz = jnp.sum(r * z, axis=1)
         denom = jnp.sum(ap * p, axis=1)
         alpha = rz / jnp.where(denom == 0, 1.0, denom)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * ap
-        z = jnp.einsum("bij,bj->bi", m_dense, r)
+        z = _einsum("bij,bj->bi", m_dense, r)
         beta = jnp.sum(r * z, axis=1) / jnp.where(rz == 0, 1.0, rz)
         p = z + beta[:, None] * p
         return (x, r, z, p), None
 
     r0 = b  # x0 = 0
-    z0 = jnp.einsum("bij,bj->bi", m_dense, r0)
+    z0 = _einsum("bij,bj->bi", m_dense, r0)
     state = (jnp.zeros_like(b), r0, z0, z0)
     (x, r, z, p), _ = jax.lax.scan(body, state, None, length=k_steps)
     res = jnp.sum(r * r, axis=1) / bb
@@ -174,7 +180,7 @@ def kaporin_loss(
     """
     a = symmetrize_tril(systems_tril_dense)
     n = a.shape[-1]
-    al = jnp.einsum("bij,bjk->bik", a, l_dense)
+    al = _einsum("bij,bjk->bik", a, l_dense)
     trace = jnp.sum(l_dense * al, axis=(1, 2))
     diag = jnp.diagonal(l_dense, axis1=1, axis2=2)
     logdet_term = jnp.sum(

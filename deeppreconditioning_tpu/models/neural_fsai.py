@@ -20,7 +20,7 @@ pattern tril(|A|^p)).  Three composable parts:
    is M = C q(B) q(B)^T C^T with B = C^T A~ C and q a small learned
    polynomial (init q = I) — SPD for any coefficients, and exactly FSAI
    when untrained.  At benchmark sizes M is materialized at setup with a
-   few MXU matmuls, so the wrap buys its iteration reduction at
+   few dense matmuls, so the wrap buys its iteration reduction at
    unchanged per-iteration cost (ops/fsai.poly_preconditioner_dense);
    at scale it is applied in factor form as alternating C / A / C^T
    sparse applies (ops/factor_apply.py).
@@ -38,13 +38,14 @@ reused across cases, exactly like the conv models' gather-GEMM plans.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
+from deeppreconditioning_tpu.models.precond_net import param_key
 from deeppreconditioning_tpu.ops.fsai import (
     FSAIPlan,
     RangeFSAIPlan,
@@ -71,11 +72,21 @@ class NeuralFSAIOut(NamedTuple):
     q_coeffs: jax.Array  # (poly_degree + 1,) coefficients of q
 
 
-class NeuralFSAI(nn.Module):
+def _dense(p, x):
+    # HIGHEST: a float32 product on the GPU would otherwise run in TF32
+    return jnp.dot(x, p["kernel"],
+                   precision=jax.lax.Precision.HIGHEST) + p["bias"]
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralFSAI:
     """FSAI base + zero-init learned refinement + learned polynomial wrap
     (see module docstring).
 
-    Call signature (single sample; vmap for batches):
+    ``init(key, plan, operand)`` returns the variables
+    ``{"params": {dense0, dense1, alpha, beta: {kernel, bias},
+    q_coeffs}}``; ``apply(variables, plan, operand)`` runs one sample
+    (vmap for batches):
         plan: FSAIPlan (operand = (nnz0_pad,) scaled tril values) or
             RangeFSAIPlan (operand = dense scaled symmetric matrix —
             the banded fast path, ops/fsai.py).  Column width must
@@ -88,13 +99,36 @@ class NeuralFSAI(nn.Module):
     hidden: int = 64
     poly_degree: int = 1  # degree of q; 0 disables the wrap
     gather: str = "rows"  # FSAIPlan submatrix extraction: "rows" (dense
-    # row gather + one-hot MXU select — fastest single-case, but its
+    # row gather + one-hot select — fastest single-case, but its
     # one-hot is O(n_pad^2 w) memory) or "lookup" (plan.sub_idx element
     # gather, O(n_pad w^2) — required when vmapping over many cases).
     # Pure tracing choice; parameters are identical across variants.
 
-    @nn.compact
-    def __call__(self, plan, operand: jax.Array) -> NeuralFSAIOut:
+    def init(self, key, plan, operand: jax.Array) -> dict:
+        """Lecun-normal hidden kernels, zero biases, zero refinement
+        heads and zero polynomial delta (the untrained model is FSAI)."""
+        del plan
+        w, h = self.width, self.hidden
+        k0, k1 = param_key(key, "dense0", 1), param_key(key, "dense1", 1)
+        lecun = jax.nn.initializers.lecun_normal()
+        dtype = jnp.asarray(operand).dtype
+
+        def zeros_dense(n_in, n_out):
+            return {"kernel": jnp.zeros((n_in, n_out), jnp.float32),
+                    "bias": jnp.zeros((n_out,), jnp.float32)}
+
+        return {"params": {
+            "dense0": {"kernel": lecun(k0, (4 * w, h), jnp.float32),
+                       "bias": jnp.zeros((h,), jnp.float32)},
+            "dense1": {"kernel": lecun(k1, (h, h), jnp.float32),
+                       "bias": jnp.zeros((h,), jnp.float32)},
+            "alpha": zeros_dense(h, w),
+            "beta": zeros_dense(h, w),
+            "q_coeffs": jnp.zeros((self.poly_degree + 1,), dtype),
+        }}
+
+    def apply(self, variables, plan, operand: jax.Array) -> NeuralFSAIOut:
+        p = variables["params"]
         w = self.width
         assert plan.width == w, (plan.width, w)
         if isinstance(plan, RangeFSAIPlan):
@@ -108,37 +142,26 @@ class NeuralFSAI(nn.Module):
 
         pad = plan.diag_pad
         pos1h = jax.nn.one_hot(plan.pos, w, dtype=c.dtype)
-        # masked-sum slot extraction: take_along_axis lowers to a
-        # near-serial batched gather on TPU (see range_fsai_columns)
+        # masked-sum slot extraction: one fused elementwise pass instead
+        # of a batched take_along_axis gather
         c_diag = jnp.sum(c * pos1h, axis=1, keepdims=True)
         denom = jnp.maximum(jnp.abs(c_diag), 1e-20)
         feats = jnp.concatenate(
             [c / denom, a_col, pos1h, pad], axis=1
         )
 
-        h = nn.Dense(self.hidden, name="dense0")(feats)
-        h = nn.gelu(h)
-        h = nn.Dense(self.hidden, name="dense1")(h)
-        h = nn.gelu(h)
-        zeros = nn.initializers.zeros
-        alpha = nn.Dense(
-            w, kernel_init=zeros, bias_init=zeros, name="alpha"
-        )(h)
-        beta = nn.Dense(
-            w, kernel_init=zeros, bias_init=zeros, name="beta"
-        )(h)
+        h = jax.nn.gelu(_dense(p["dense0"], feats))
+        h = jax.nn.gelu(_dense(p["dense1"], h))
+        alpha = _dense(p["alpha"], h)
+        beta = _dense(p["beta"], h)
 
         live = (plan.out_rows < plan.n_pad).astype(c.dtype) * (1.0 - pad)
         refined = c * jnp.exp(alpha) + (1.0 - pos1h) * beta * c_diag
         c_out = refined * live
 
-        # q(B) coefficients: identity init + zero-init trainable delta
+        # q(B) coefficients: identity + trainable (zero-init) delta
         q0 = jnp.zeros((self.poly_degree + 1,), c.dtype).at[0].set(1.0)
-        dq = self.param(
-            "q_coeffs", nn.initializers.zeros, (self.poly_degree + 1,),
-            c.dtype,
-        )
-        return NeuralFSAIOut(c_vals=c_out, q_coeffs=q0 + dq)
+        return NeuralFSAIOut(c_vals=c_out, q_coeffs=q0 + p["q_coeffs"])
 
 
 def batched_apply_fsai(model: NeuralFSAI, params, plans,

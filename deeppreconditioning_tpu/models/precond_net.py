@@ -8,7 +8,7 @@ output transform that (a) zeroes features at sites with row < col to force
 lower-triangularity and (b) applies softplus on the diagonal so L has a
 strictly positive diagonal, making M = L L^T SPD by construction.
 
-TPU-native shape: the network runs over a *precomputed index plan*
+Shape: the network runs over a *precomputed index plan*
 (ops/sparse_conv.py) — features are a dense (nnz_pad, C) array, every layer
 is K gathers + K small GEMMs, and the whole forward jits to a single XLA
 program with static shapes.  Batching is an outer ``jax.vmap``.
@@ -16,12 +16,13 @@ program with static shapes.  Batching is an outer ``jax.vmap``.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import List, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
 from deeppreconditioning_tpu.ops.sparse_conv import (
     ConvSpec,
@@ -47,6 +48,20 @@ def precond_net_specs(channels: Sequence[int]) -> List[ConvSpec]:
     return specs
 
 
+def param_key(key, *path) -> jax.Array:
+    """The PRNG key a parameter is drawn from: the first 4 bytes of the
+    SHA-1 of its path (strings as UTF-8, ints big-endian), folded into
+    ``key``.  Every model derives its initial parameters this way, so a
+    given seed gives the same weights it always has."""
+    digest = hashlib.sha1()
+    for part in path:
+        digest.update(part.encode() if isinstance(part, str)
+                      else part.to_bytes((part.bit_length() + 7) // 8,
+                                         "big"))
+    return jax.random.fold_in(
+        key, jnp.uint32(int.from_bytes(digest.digest()[:4], "big")))
+
+
 def _torch_conv_init(key, k: int, cin: int, cout: int, dtype):
     """Kaiming-uniform init matching torch's Conv2d default (parity with
     the reference's spconv layers)."""
@@ -58,10 +73,13 @@ def _torch_conv_init(key, k: int, cin: int, cout: int, dtype):
     return w, b
 
 
-class PreconditionerNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PreconditionerNet:
     """Fully convolutional sparse net returning lower-triangular factors.
 
-    Call signature (single sample; vmap for batches):
+    ``init(key, features, plans)`` returns ``{"params": {w{i}, b{i},
+    prelu{i}}}``; ``apply(variables, features, plans)`` runs one sample
+    (vmap for batches):
         features: (nnz0_pad, channels[0]) input entry values.
         plans: per-layer LayerPlans from ops.sparse_conv (list length =
             number of layers).
@@ -71,49 +89,49 @@ class PreconditionerNet(nn.Module):
 
     channels: Tuple[int, ...] = (1, 16, 32, 64, 32, 16, 1)
 
-    @nn.compact
-    def __call__(self, features: jax.Array, plans: Sequence[LayerPlan]
-                 ) -> jax.Array:
+    def init(self, key, features=None, plans=None) -> dict:
+        del features, plans
         chans = self.channels
         specs = precond_net_specs(chans)
+        params = {}
+        count = 0  # parameters are numbered in creation order
+        for li, spec in enumerate(specs):
+            k = spec.kernel[0] * spec.kernel[1]
+            io = (k, chans[li], chans[li + 1], jnp.float32)
+            params[f"w{li}"] = _torch_conv_init(
+                param_key(key, count + 1), *io)[0]
+            params[f"b{li}"] = _torch_conv_init(
+                param_key(key, count + 2), *io)[1]
+            count += 2
+            if li < len(specs) - 1:
+                # PReLU with torch's default 0.25 slope (model.py:29,37)
+                params[f"prelu{li}"] = jnp.full((1,), 0.25, jnp.float32)
+                count += 1
+        return {"params": params}
+
+    def apply(self, variables, features: jax.Array,
+              plans: Sequence[LayerPlan]) -> jax.Array:
+        p = variables["params"]
+        specs = precond_net_specs(self.channels)
         assert len(plans) == len(specs)
 
         x = features
-        for li, spec in enumerate(specs):
-            cin, cout = chans[li], chans[li + 1]
-            k = spec.kernel[0] * spec.kernel[1]
-            w = self.param(
-                f"w{li}",
-                lambda key, sh, _k=k, _ci=cin, _co=cout: _torch_conv_init(
-                    key, _k, _ci, _co, jnp.float32
-                )[0],
-                (k, cin, cout),
-            )
-            b = self.param(
-                f"b{li}",
-                lambda key, sh, _k=k, _ci=cin, _co=cout: _torch_conv_init(
-                    key, _k, _ci, _co, jnp.float32
-                )[1],
-                (cout,),
-            )
-            x = apply_sparse_conv(x, plans[li], w, b)
+        for li in range(len(specs)):
+            x = apply_sparse_conv(x, plans[li], p[f"w{li}"], p[f"b{li}"])
             if li < len(specs) - 1:
-                # PReLU with torch's default 0.25 slope init (model.py:29,37)
-                alpha = self.param(
-                    f"prelu{li}",
-                    lambda key, sh: jnp.full(sh, 0.25, jnp.float32),
-                    (1,),
-                )
-                x = jnp.where(x >= 0, x, alpha * x)
+                x = jnp.where(x >= 0, x, p[f"prelu{li}"] * x)
+        return lower_factor_output(x, plans[-1])
 
-        # output transform (model.py:53-57): lower-tri mask + softplus diag
-        final = plans[-1]
-        vals = x[:, 0]
-        vals = jnp.where(final.rows < final.cols, 0.0, vals)
-        vals = jnp.where(
-            final.rows == final.cols, jax.nn.softplus(vals), vals
-        )
-        return jnp.where(final.valid, vals, 0.0)
+
+def lower_factor_output(x: jax.Array, final) -> jax.Array:
+    """Output transform (model.py:53-57): zero the strict upper
+    triangle, softplus the diagonal, zero padded sites."""
+    vals = x[:, 0]
+    vals = jnp.where(final.rows < final.cols, 0.0, vals)
+    vals = jnp.where(
+        final.rows == final.cols, jax.nn.softplus(vals), vals
+    )
+    return jnp.where(final.valid, vals, 0.0)
 
 
 def batched_apply(model: PreconditionerNet, params, features: jax.Array,

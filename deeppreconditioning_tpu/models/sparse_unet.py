@@ -7,7 +7,7 @@ restore the downsampler's input active set (indice_key semantics), and
 sparse_add skip connections, finishing with the same lower-triangular
 mask + softplus diagonal output transform.
 
-TPU-native shape: all index maps are precomputed host-side by
+Shape: all index maps are precomputed host-side by
 ``UNetPlanBuilder`` (ops/sparse_conv.py builders).  Because an inverse
 conv restores *exactly* the site set (and order) of the matching
 downsampler's input, every skip connection operates on identically-laid-
@@ -24,14 +24,18 @@ Deviations from the reference, by design:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
-from deeppreconditioning_tpu.models.precond_net import _torch_conv_init
+from deeppreconditioning_tpu.models.precond_net import (
+    _torch_conv_init,
+    lower_factor_output,
+    param_key,
+)
 from deeppreconditioning_tpu.ops.sparse_conv import (
     ConvSpec,
     LayerPlan,
@@ -127,22 +131,23 @@ class UNetPlanBuilder:
         return plan
 
 
-class PreconditionerSparseUNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PreconditionerSparseUNet:
     """U-Net mapping tril(A) patterns to lower-triangular factors L.
 
-    Call with (features (nnz0_pad, channels[0]), plans: 17 LayerPlans in
-    UNET_TOPOLOGY order); vmap for batches.  Uses channels[0..5] like the
-    reference (model.py:69-137).
+    ``init(key, features, plans)`` returns ``{"params": {w_<layer>,
+    b_<layer>}}``; ``apply(variables, features (nnz0_pad, channels[0]),
+    plans: 17 LayerPlans in UNET_TOPOLOGY order)`` runs one sample (vmap
+    for batches).  Uses channels[0..5] like the reference
+    (model.py:69-137).
     """
 
     channels: Tuple[int, ...] = (1, 16, 32, 64, 32, 16, 1)
 
-    @nn.compact
-    def __call__(self, features: jax.Array,
-                 plans: Sequence[LayerPlan]) -> jax.Array:
+    def _io(self):
         c = self.channels
         # per-layer (Cin, Cout); mirrors model.py:69-137
-        io = {
+        return {
             "enc1": (c[0], c[1]), "down1": (c[1], c[2]),
             "enc2": (c[2], c[2]), "down2": (c[2], c[3]),
             "enc3": (c[3], c[3]), "down3": (c[3], c[4]),
@@ -154,40 +159,37 @@ class PreconditionerSparseUNet(nn.Module):
             "out": (c[1], 1),
         }
 
+    def init(self, key, features=None, plans=None) -> dict:
+        del features, plans
+        io = self._io()
+        params = {}
+        for li, (name, kind, _, _) in enumerate(UNET_TOPOLOGY):
+            k = 1 if kind == "subm1" else 9
+            shape = (k, *io[name], jnp.float32)
+            # parameters are numbered in creation order: w, b per layer
+            params[f"w_{name}"] = _torch_conv_init(
+                param_key(key, 2 * li + 1), *shape)[0]
+            params[f"b_{name}"] = _torch_conv_init(
+                param_key(key, 2 * li + 2), *shape)[1]
+        return {"params": params}
+
+    def apply(self, variables, features: jax.Array,
+              plans: Sequence[LayerPlan]) -> jax.Array:
+        p = variables["params"]
+
         def leaky(x):
             return jnp.where(x >= 0, x, 0.01 * x)
 
         saved = {}
         x = features
-        for li, (name, kind, _, _) in enumerate(UNET_TOPOLOGY):
-            cin, cout = io[name]
-            k = 1 if kind == "subm1" else 9
-            w = self.param(
-                f"w_{name}",
-                lambda key, sh, _k=k, _ci=cin, _co=cout: _torch_conv_init(
-                    key, _k, _ci, _co, jnp.float32
-                )[0],
-                (k, cin, cout),
+        for li, (name, _, _, _) in enumerate(UNET_TOPOLOGY):
+            x = apply_sparse_conv(
+                x, plans[li], p[f"w_{name}"], p[f"b_{name}"]
             )
-            b = self.param(
-                f"b_{name}",
-                lambda key, sh, _k=k, _ci=cin, _co=cout: _torch_conv_init(
-                    key, _k, _ci, _co, jnp.float32
-                )[1],
-                (cout,),
-            )
-            x = apply_sparse_conv(x, plans[li], w, b)
             if name != "out":
                 x = leaky(x)
             if name in UNET_SKIPS:
                 x = x + saved[UNET_SKIPS[name]]  # sparse_add, same sites
             if name.startswith("enc"):
                 saved[name] = x
-
-        final = plans[-1]
-        vals = x[:, 0]
-        vals = jnp.where(final.rows < final.cols, 0.0, vals)
-        vals = jnp.where(
-            final.rows == final.cols, jax.nn.softplus(vals), vals
-        )
-        return jnp.where(final.valid, vals, 0.0)
+        return lower_factor_output(x, plans[-1])

@@ -1,11 +1,12 @@
 """ctypes bindings to the native C++ host runtime (libdptpu.so).
 
-Build with ``make -C native`` (g++ only; no pybind11 in this
-environment).  Every entry point has a pure-numpy fallback — the native
-path is a drop-in accelerator for the host-side precompute (conv index
-plans, incomplete factorizations, levelization), mirroring how the
-reference rides spconv's native indice generation and ilupp's C++
-factorizations (reference test.py:81-93, model.py:27-40).
+The library is built from ``native/src`` on first use (``make -C
+native``, g++, bound through ctypes — no pybind11); a build that fails
+leaves ``available()`` false.  Every entry point has a pure-numpy
+fallback — the native path is a drop-in accelerator for the host-side
+precompute (conv index plans, incomplete factorizations, levelization),
+mirroring how the reference rides spconv's native indice generation and
+ilupp's C++ factorizations (reference test.py:81-93, model.py:27-40).
 
 Use ``available()`` to check, ``require()`` to assert.
 """
@@ -13,6 +14,7 @@ Use ``available()`` to check, ``require()`` to assert.
 from __future__ import annotations
 
 import ctypes
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -20,9 +22,24 @@ import numpy as np
 _LIB = None
 _LIB_TRIED = False
 
-_LIB_PATHS = [
-    Path(__file__).resolve().parent.parent.parent / "native" / "libdptpu.so",
-]
+_NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
+_LIB_PATH = _NATIVE_DIR / "libdptpu.so"
+
+
+def build() -> bool:
+    """``make -C native`` if the library is missing or older than its
+    source.  The Makefile writes to a temporary name and renames, so
+    concurrent builders (test workers) never load a half-written file."""
+    src = _NATIVE_DIR / "src" / "dptpu.cpp"
+    if _LIB_PATH.exists() and (
+            not src.exists()
+            or _LIB_PATH.stat().st_mtime >= src.stat().st_mtime):
+        return True
+    if not src.exists():
+        return False
+    proc = subprocess.run(["make", "-s", "-C", str(_NATIVE_DIR)],
+                          capture_output=True, text=True)
+    return proc.returncode == 0 and _LIB_PATH.exists()
 
 
 def _load():
@@ -30,12 +47,10 @@ def _load():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    for path in _LIB_PATHS:
-        if path.exists():
-            lib = ctypes.CDLL(str(path))
-            _configure(lib)
-            _LIB = lib
-            break
+    if build():
+        lib = ctypes.CDLL(str(_LIB_PATH))
+        _configure(lib)
+        _LIB = lib
     return _LIB
 
 
@@ -75,7 +90,7 @@ def require():
     lib = _load()
     if lib is None:
         raise RuntimeError(
-            "libdptpu.so not built; run `make -C native`"
+            "libdptpu.so could not be built; run `make -C native`"
         )
     return lib
 

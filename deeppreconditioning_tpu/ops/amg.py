@@ -1,4 +1,4 @@
-"""Algebraic multigrid preconditioner — TPU-native multilevel aggregation.
+"""Algebraic multigrid preconditioner — multilevel aggregation on device.
 
 Replaces the reference's pyamg smoothed-aggregation baseline
 (uibk/deep_preconditioning/test.py:95-98, disabled there: the
@@ -31,7 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 from deeppreconditioning_tpu.sparse.ell import ELLMatrix, csr_to_ell_arrays
 

@@ -4,12 +4,11 @@ The batched benchmark protocol (bench/suite.run_batched) applies the
 learned preconditioner as a dense matvec ``z = M r`` with
 ``M = C q(B) q(B)^T C^T`` materialized at setup
 (models/neural_fsai.neural_fsai_dense_preconditioner) — a handful of
-n^3 MXU matmuls *per case* that dominate the technique's batched total
+n^3 matmuls *per case* that dominate the technique's batched total
 (VERDICT r3 weak #2: setup 141 ms vs Jacobi's whole-protocol 82 ms).
 The generic factor form (ops/factor_apply.py) removes the
-materialization but leans on arbitrary-index gathers, which XLA lowers
-to near-serial ~130 M elem/s loads when batched over cases
-(bench/suite._scaled_dense_matvec docstring).
+materialization but leans on arbitrary-index gathers batched over
+cases.
 
 This module exploits what the benchmark families actually look like:
 FVM/mesh orderings are *banded* (the same structure RangeFSAIPlan
@@ -95,9 +94,9 @@ def extract_bands(
         live = live & (safe_rows < n0) & (cols[:, None] < n0)
     vals = jnp.where(live, vals, 0.0)
     if precision == "bf16":
-        # single MXU pass, bf16 inputs: the one-hot stays exact 0/1 but
-        # the values round to bf16 — acceptable exactly when the bands
-        # are stored bf16 anyway (the batched protocol's first attempt)
+        # bf16 on purpose: the one-hot stays exact 0/1 and the values
+        # round to bf16 — acceptable exactly when the bands are stored
+        # bf16 anyway (the batched protocol's first attempt)
         oh = (
             offs[:, :, None] == jnp.arange(d_max, dtype=offs.dtype)
         ).astype(jnp.bfloat16)
@@ -118,9 +117,8 @@ def banded_lower_matvec(bands: jax.Array, t: jax.Array) -> jax.Array:
 
     bands: (..., D, n), t: (..., n); batch dims broadcast.  One padded
     buffer + D static slices + an add tree — a single XLA fusion whose
-    HBM traffic is ~2x the band array (the earlier pad-flatten-reshape
-    "skew" formulation materialized three copies and timed ~6x slower
-    on a v5e over a 100-case batch).
+    memory traffic is ~2x the band array (a pad-flatten-reshape "skew"
+    formulation would materialize three copies).
     """
     n = t.shape[-1]
     d_n = bands.shape[-2]

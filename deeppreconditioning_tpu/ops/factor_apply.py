@@ -2,7 +2,7 @@
 
 The reference applies the learned preconditioner as a *dense* matvec
 ``z = M @ r`` with ``M = L L^T`` materialized in setup
-(uibk/deep_preconditioning/test.py:100-105, cg.py:81).  On TPU that costs
+(uibk/deep_preconditioning/test.py:100-105, cg.py:81).  That costs
 an n^3 matmul per setup plus an n^2 dense matvec per CG iteration even
 though L lives on a sparse, statically known pattern (the conv-dilated
 tril sites).  This module keeps the preconditioner in factor form:
@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 @struct.dataclass

@@ -1,6 +1,6 @@
-"""Factorized Sparse Approximate Inverse (FSAI) preconditioner on TPU.
+"""Factorized Sparse Approximate Inverse (FSAI) preconditioner.
 
-A TPU-native *extension* beyond the reference's technique set
+An *extension* beyond the reference's technique set
 (uibk/deep_preconditioning/test.py:42-49 has vanilla / jacobi / ichol /
 ilu / amg / learned): FSAI builds a lower-triangular C on a fixed sparsity
 pattern with ``C^T A C ~= I``, so ``M = C C^T ~= A^-1`` is applied exactly
@@ -12,9 +12,9 @@ come from closed-form local solves instead of a CNN:
 where S_j = {i >= j : (i,j) in pattern}.  This minimizes the Kaporin
 condition number of C^T A C over the pattern (Kaporin 1994), and with the
 pattern of tril(|A|^3) it out-iterates IC(0) on the FVM dataset while its
-setup is embarrassingly parallel: one batched (n, w, w) Cholesky solve —
-exactly what a TPU is good at, and why FSAI (not level-scheduled IC) is
-the idiomatic TPU answer to "strong classical preconditioner".
+setup is embarrassingly parallel: one batched (n, w, w) local solve
+with no sequential dependency between columns, where level-scheduled IC
+is a chain of dependent waves.
 
 Everything static-shaped: the pattern is precomputed host-side into an
 ``FSAIPlan`` of fixed column width w (dataset-global), so one compiled
@@ -23,15 +23,15 @@ setup executable serves every case.
 
 from __future__ import annotations
 
-import functools
-import math
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from flax import struct
+
+from deeppreconditioning_tpu.ops import gauss_jordan
+from deeppreconditioning_tpu.utils import struct
 
 
 # -- host: pattern + plan ---------------------------------------------------
@@ -229,30 +229,6 @@ def build_fsai_plan(
 
 # -- device: batched local solves -------------------------------------------
 
-def _batched_gauss_jordan(sub: jax.Array, e: jax.Array) -> jax.Array:
-    """Solve sub @ y = e for a batch of small SPD systems.
-
-    Unrolled Gauss-Jordan without pivoting — (w) steps of fully
-    vectorized elementwise work over the batch, which XLA fuses into a
-    handful of VPU kernels.  This replaces ``jnp.linalg.cholesky`` +
-    ``cho_solve``, whose LAPACK-style lowering runs ~3 ms for a
-    (1024, 13, 13) batch on a v5e chip (vs ~0.1 ms here).  No pivoting is
-    safe: the submatrices are principal blocks of an SPD matrix with unit
-    diagonal (symmetric Jacobi scaling), and padded slots carry an
-    identity block.
-    """
-    w = sub.shape[-1]
-    aug = jnp.concatenate([sub, e[:, :, None]], axis=2)  # (B, w, w+1)
-    for k in range(w):
-        pivot = aug[:, k, k][:, None]
-        row_k = aug[:, k, :] / pivot  # (B, w+1)
-        col_k = aug[:, :, k]  # (B, w)
-        col_k = col_k.at[:, k].set(0.0)  # keep row k itself
-        aug = aug - col_k[:, :, None] * row_k[:, None, :]
-        aug = aug.at[:, k, :].set(row_k)
-    return aug[:, :, w]
-
-
 def fsai_dense_from_l0(plan: FSAIPlan, l0_vals: jax.Array) -> jax.Array:
     """Dense symmetric scaled matrix A~ from the tril value vector
     (scatter of nnz0 elements; padded tail lands in a dumped row)."""
@@ -272,12 +248,10 @@ def fsai_values(plan: FSAIPlan, l0_vals: jax.Array,
     matrix, a_col[j, k] = A~[S_j[k], j] — the local-structure features
     consumed by the NeuralFSAI refinement MLP.
 
-    TPU shape notes: the (n_pad, w, w) submatrix extraction avoids XLA's
-    near-serial element gather (measured ~3 ms for 170k indices) by
-    gathering *whole rows* of the dense scaled matrix (dynamic-slice
-    rows, lane-vectorized) and selecting columns with a one-hot batched
-    matmul on the MXU; the local solves are an unrolled Gauss-Jordan
-    (see _batched_gauss_jordan).
+    Shape notes: the (n_pad, w, w) submatrix extraction gathers *whole
+    rows* of the dense scaled matrix and selects columns with a one-hot
+    batched matmul instead of an element gather; the local solves are
+    the batched Gauss-Jordan of ops/gauss_jordan.py.
     """
     n_pad = plan.n_pad
     w = plan.width
@@ -289,12 +263,14 @@ def fsai_values(plan: FSAIPlan, l0_vals: jax.Array,
     s_safe = jnp.minimum(s_mat, n_pad - 1)
     # rows of every submatrix: (n_pad, w, n_pad) row gather
     r_rows = a_dense[s_safe.reshape(-1)].reshape(n_pad, w, n_pad)
-    # column selection as one-hot batched matmul (MXU): O[j, n, q] =
-    # [n == S_j[q]]
+    # column selection as one-hot batched matmul: O[j, n, q] =
+    # [n == S_j[q]]; HIGHEST keeps the selected values exact (a default
+    # f32 product may run in TF32 on the GPU)
     one_hot = (
         s_safe[:, None, :] == jnp.arange(n_pad)[None, :, None]
     ).astype(dtype)  # (n_pad, n_pad, w)
-    sub = jnp.einsum("jpn,jnq->jpq", r_rows, one_hot)
+    sub = jnp.einsum("jpn,jnq->jpq", r_rows, one_hot,
+                     precision=jax.lax.Precision.HIGHEST)
     return _fsai_solve_columns(plan, sub, with_aux)
 
 
@@ -312,7 +288,7 @@ def _fsai_solve_columns(plan: FSAIPlan, sub: jax.Array,
     sub = sub + jnp.eye(w, dtype=dtype) * pad[:, :, None]
 
     e = jax.nn.one_hot(plan.pos, w, dtype=dtype)  # (n_pad, w)
-    y = _batched_gauss_jordan(sub, e)
+    y = gauss_jordan.solve_batched(sub, e)
     y_pos = jnp.take_along_axis(y, plan.pos[:, None], axis=1)[:, 0]
     c = y / jnp.sqrt(jnp.maximum(y_pos, 1e-30))[:, None]
     c = jnp.where(plan.out_rows < n_pad, c, 0.0)
@@ -385,7 +361,7 @@ def fsai_dense_preconditioner(
     else:
         c_vals = fsai_values(plan, l0_vals)
     c = fsai_dense_factor(plan, c_vals, d_isqrt, n0)
-    m = c @ c.T
+    m = jnp.matmul(c, c.T, precision=jax.lax.Precision.HIGHEST)
     if n0 is not None:
         mask = jnp.arange(plan.n_pad) < n0
         m = jnp.where(mask[:, None] & mask[None, :], m, 0.0)
@@ -402,9 +378,8 @@ class RangeFSAIPlan:
     consecutive columns every submatrix index S_j lives in one contiguous
     row range [lo_b, lo_b + H).  Submatrix extraction then becomes B
     large dynamic slices of the dense scaled matrix (one XLA gather of
-    (H, H) slabs) plus MXU one-hot contractions — measured ~6x faster
-    than the generic element-gather path on a v5e (XLA lowers scattered
-    element/row gathers to near-serial loads).
+    (H, H) slabs) plus one-hot contractions, in place of the generic
+    path's scattered element gathers.
 
     Shapes: n_pad columns, B = n_pad / JB blocks, width w, range H.
         lo: (B,) int32 block range starts (clipped to n_pad - H).
@@ -567,111 +542,6 @@ def build_range_fsai_plan(
     )
 
 
-def _masked_gauss_jordan(sub: jax.Array, e: jax.Array) -> jax.Array:
-    """Gauss-Jordan via iota masks (no .at[] row writes — each step is
-    one fused VPU pass instead of copy-heavy dynamic updates).
-
-    On TPU the w dependent steps would each round-trip the (B, w, w+1)
-    augmented system through HBM (the pivot-row broadcast defeats XLA's
-    elementwise fusion) — w ~ 21 turns a 2 MB problem into ~160 MB of
-    traffic per batch.  The Pallas path tiles rows into VMEM and runs
-    the whole elimination in-register, reading sub/e once and writing y
-    once.  Dispatched at trace time; CPU/tests keep the pure-XLA form.
-    """
-    if (sub.ndim == 3 and GJ_PALLAS_ENABLED
-            and sub.shape[-1] >= 8
-            and jax.default_backend() == "tpu"):
-        return _masked_gauss_jordan_pallas(sub, e)
-    return _masked_gauss_jordan_xla(sub, e)
-
-
-# The r3 kernel (row-major (T, w, w) tiles, Python-unrolled steps) hung
-# the remote Mosaic compile helper; the r4 lane-major kernel below
-# compiles cleanly (the "hang" reproduced as a wedged single-client TPU
-# grant, not a compiler fault), is bit-exact vs the XLA form, and
-# measures ~2x faster (623 vs 1205 us per (4096, 24, 24) batch incl.
-# the layout transposes) — enabled by default on TPU.
-GJ_PALLAS_ENABLED = True
-
-
-def _masked_gauss_jordan_xla(sub: jax.Array, e: jax.Array) -> jax.Array:
-    w = sub.shape[-1]
-    aug = jnp.concatenate([sub, e[..., :, None]], axis=-1)  # (B, w, w+1)
-    row_iota = jnp.arange(w)
-    for k in range(w):
-        pivot = aug[..., k, k][..., None]
-        row_k = aug[..., k, :] / pivot  # (B, w+1)
-        col_k = jnp.where(
-            (row_iota == k), 0.0, aug[..., :, k]
-        )  # (B, w)
-        aug = aug - col_k[..., :, None] * row_k[..., None, :]
-        aug = jnp.where(
-            (row_iota == k)[:, None], row_k[..., None, :], aug
-        )
-    return aug[..., :, w]
-
-
-def _gj_kernel(aug_ref, y_ref, *, w: int):
-    """In-VMEM masked Gauss-Jordan on the lane-major layout (w, w+1, T).
-
-    The batch of systems rides the 128-wide LANE dimension (full VPU
-    utilization — the r3 (T, w, w) layout left 104/128 lanes idle and
-    measured 2.5x slower than XLA); the w elimination steps unroll in
-    Python with static row/column slices, masked only where the pivot
-    row must be preserved.  f32 masks: Mosaic cannot minor-dim-
-    broadcast i1.
-    """
-    aug = aug_ref[...]  # (w, w+1, T)
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (w, 1), 0)
-    for k in range(w):
-        pivot = aug[k, k, :]  # (T,)
-        inv = 1.0 / pivot
-        row_k = aug[k] * inv[None, :]  # (w+1, T)
-        col = aug[:, k, :]  # (w, T)
-        mask = (iota_r == k).astype(aug.dtype)  # (w, 1)
-        col = col * (1.0 - mask)
-        aug = aug - col[:, None, :] * row_k[None, :, :]
-        aug = (aug * (1.0 - mask[:, :, None])
-               + mask[:, :, None] * row_k[None, :, :])
-    y_ref[...] = aug[:, w, :]
-
-
-def gauss_jordan_lanes(aug: jax.Array, tile: int = 512) -> jax.Array:
-    """In-VMEM batched Gauss-Jordan on the native lane-major layout:
-    aug (w, w+1, N) — the N systems ride the lane axis — returns the
-    solution rows (w, N).  Grid over lane tiles; one read of the
-    augmented block, w unrolled elimination steps on VMEM-resident
-    values, one write.  Callers that already hold (w, ..., N) data
-    (ops/structured_fsai.py) pay zero layout transposes."""
-    from jax.experimental import pallas as pl
-
-    w, w1, r = aug.shape
-    assert w1 == w + 1
-    if r % tile != 0:
-        tile = math.gcd(r, tile)
-    return pl.pallas_call(
-        functools.partial(_gj_kernel, w=w),
-        grid=r // tile,
-        in_specs=[
-            pl.BlockSpec((w, w + 1, tile), lambda i: (0, 0, i)),
-        ],
-        out_specs=pl.BlockSpec((w, tile), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((w, r), aug.dtype),
-    )(aug)
-
-
-def _masked_gauss_jordan_pallas(
-    sub: jax.Array, e: jax.Array, tile: int = 512
-) -> jax.Array:
-    """(T, w, w) front-end for gauss_jordan_lanes (transposes in/out)."""
-    aug = jnp.concatenate(
-        [jnp.transpose(sub, (1, 2, 0)),
-         jnp.transpose(e)[:, None, :]],
-        axis=1,
-    )  # (w, w+1, r)
-    return jnp.transpose(gauss_jordan_lanes(aug, tile))
-
-
 def fsai_values_range(plan: RangeFSAIPlan, a_dense: jax.Array
                       ) -> jax.Array:
     """Column values of C from the range-blocked plan (one fused jit).
@@ -688,7 +558,7 @@ def range_dense_factor(plan: RangeFSAIPlan, c_vals: jax.Array,
                        d_isqrt=None, n0=None) -> jax.Array:
     """Dense lower-triangular C from range-blocked column values.
 
-    Placement is MXU one-hot matmuls per block (column ranges are
+    Placement is one-hot matmuls per block (column ranges are
     disjoint, row strips contiguous) — no scatter.
     """
     n_pad = plan.n_pad
@@ -730,10 +600,9 @@ def fsai_dense_preconditioner_range(
 ) -> jax.Array:
     """Range-blocked FSAI setup: M = C C^T as a dense matrix.
 
-    MXU-layout-conscious variant: the two pattern contractions run as
-    explicit batched ``dot_general``s on a (B, H, JB*w) one-hot layout
-    (jnp.einsum's 4-D forms spend milliseconds in layout transposes on
-    TPU), and M is assembled *without* materializing dense C: per block,
+    The two pattern contractions run as explicit batched
+    ``dot_general``s on a (B, H, JB*w) one-hot layout (no 4-D einsum
+    layout transposes), and M is assembled *without* materializing dense C: per block,
     G_b = sum_{j in b} c_j c_j^T is an (H, H) slab added at
     (lo_b, lo_b) — a fori_loop of dynamic-slab updates over B blocks
     instead of an n^3 C C^T matmul plus a 64 MB placement one-hot.
@@ -777,20 +646,20 @@ def range_fsai_columns(plan: RangeFSAIPlan, a_dense: jax.Array,
     # Z = A_b @ E  : (B, H, JB*w)
     z = jax.lax.dot_general(
         slabs, oh_wide, (((2,), (1,)), ((0,), (0,))),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=dtype,
     )
     # S = E^T A_b E : (B, JB*w, JB*w); keep only the JB diagonal
     # (w, w) blocks
     s_full = jax.lax.dot_general(
         oh_wide, z, (((1,), (1,)), ((0,), (0,))),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=dtype,
     )
     s5 = s_full.reshape(b, jb, w, jb, w)
     # diagonal (w, w) blocks via JB static slices: bit-exact (no
-    # matmul at all, resolving ADVICE r3 #2's bf16 input rounding) and
-    # cheaper than both the eye dot_general (whose HIGHEST-precision
-    # exact form costs 9 bf16 passes over the 19 MB/case s5 tensor)
-    # and jnp.diagonal + moveaxis (strided layout ops)
+    # matmul at all) and cheaper than both an eye dot_general and
+    # jnp.diagonal + moveaxis (strided layout ops)
     sub = jnp.stack(
         [s5[:, j, :, j, :] for j in range(jb)], axis=1
     ).reshape(n_pad, w, w)
@@ -801,11 +670,10 @@ def range_fsai_columns(plan: RangeFSAIPlan, a_dense: jax.Array,
     sub = sub + jnp.eye(w, dtype=dtype) * pad[:, :, None]
 
     e = jax.nn.one_hot(plan.pos, w, dtype=dtype)
-    y = _masked_gauss_jordan(sub, e)
-    # masked-sum slot extraction: take_along_axis lowers to a batched
-    # per-row gather (near-serial loads on TPU — measured ~35 ms across
-    # a 100-case vmapped setup); the one-hot reduction is a fused VPU
-    # pass and e is already the diagonal-slot one-hot
+    y = gauss_jordan.solve_batched(sub, e)
+    # masked-sum slot extraction instead of a batched take_along_axis
+    # gather: the one-hot reduction is one fused elementwise pass and e
+    # is already the diagonal-slot one-hot
     y_pos = jnp.sum(y * e, axis=1)
     c = y / jnp.sqrt(jnp.maximum(y_pos, 1e-30))[:, None]
     c = jnp.where(plan.out_rows < n_pad, c, 0.0)  # (n_pad, w)
@@ -832,8 +700,8 @@ def range_strips(plan: RangeFSAIPlan, c_vals: jax.Array) -> jax.Array:
         == jnp.arange(h, dtype=plan.local.dtype)[None, :, None, None]
     ).astype(dtype)  # (B, H, JB, w) — native layout, no transposes
     # HIGHEST: the one-hot operand is exact 0/1 — full precision keeps
-    # the strip placement bit-exact (no bf16 rounding of the column
-    # values on TPU; ADVICE r3 #2)
+    # the strip placement bit-exact (no reduced-precision rounding of
+    # the column values)
     strips = jnp.einsum(
         "bjk,bhjk->bjh", c_vals.reshape(b, jb, w), oh4,
         precision=jax.lax.Precision.HIGHEST,
@@ -851,7 +719,7 @@ def cap_pattern_spread(
     A pattern-policy filter: any diagonal-containing subset is a legal
     FSAI pattern, and entries far below the diagonal of a diffusion
     operator's power are the weakest couplings.  Used to pin the
-    range-plan slab height H to the next-lower MXU lane multiple when
+    range-plan slab height H to the next-lower multiple of 128 when
     the natural spread barely crosses it (e.g. dataset spread 129 ->
     H = 256; capping at H - JB keeps H = 128 and halves the slab
     math)."""
@@ -971,6 +839,7 @@ def range_m_from_strips(
     g = jax.lax.dot_general(
         c_local, c_local,
         (((1,), (1,)), ((0,), (0,))),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=dtype,
     )  # (B, H, H)
 
@@ -1041,15 +910,15 @@ def poly_preconditioner_dense(
     q(B) = a I - b B acts like Chebyshev acceleration of the FSAI-
     preconditioned operator — iterations drop ~2x while the *per-
     iteration* apply cost is unchanged, because M~ is materialized here
-    with a handful of MXU matmuls at setup (the TPU-native trade: n^3
-    setup FLOPs are ~micro-seconds at benchmark sizes).  Scaling fold
+    with a handful of matmuls at setup (n^3 setup FLOPs are cheap at
+    benchmark sizes).  Scaling fold
     and padding mask mirror fsai_dense_preconditioner.
     """
     dtype = c_dense.dtype
     n = c_dense.shape[0]
-    # full f32 precision: the default bf16 MXU passes cost ~3e-3 relative
-    # error in M, visibly off the exact factor-form apply; these are a
-    # handful of n^3 matmuls at setup — microseconds at benchmark sizes
+    # full f32 precision: a reduced-precision pass (TF32 on the GPU)
+    # costs ~1e-3 relative error in M, visibly off the exact factor-form
+    # apply; these are a handful of n^3 matmuls at setup
     if precision == "bf16":
         # bf16 inputs + f32 accumulation (see poly_preconditioner_from_gram)
         bf = jnp.bfloat16
@@ -1096,7 +965,7 @@ def poly_preconditioner_from_gram(
     The range path assembles S directly from block-local strips
     (range_m_from_strips, the same slab op the classical FSAI setup
     uses), which skips materializing the dense factor C entirely —
-    the learned setup then costs only 2d+1 extra MXU matmuls over
+    the learned setup then costs only 2d+1 extra matmuls over
     classical FSAI.  Works in raw space: S_eff = D^-1/2 S~ D^-1/2 and
     A_raw = D^1/2 A~ D^1/2 make the scaling fold cancel term-wise.
     q = I reduces to M = S exactly.  Padding: with S_eff masked to
@@ -1106,8 +975,8 @@ def poly_preconditioner_from_gram(
     dtype = s_eff.dtype
     r = jnp.convolve(q_coeffs, q_coeffs)  # (2d+1,)
     if precision == "bf16":
-        # bf16 inputs + f32 accumulation: single MXU pass per matmul.
-        # The resulting ~4e-3 relative perturbation of M leaves PCG
+        # bf16 on purpose (inputs bf16, f32 accumulation): half the
+        # operand traffic of the f32 matmuls.  The resulting ~4e-3 relative perturbation of M leaves PCG
         # iteration counts unchanged (M is a preconditioner, not part
         # of the residual recurrence) — asserted against the f32
         # per-case protocol in the batched benchmark.
@@ -1123,9 +992,8 @@ def poly_preconditioner_from_gram(
                 t_bf, p.astype(bf), preferred_element_type=dtype
             ) + r[i] * s_eff
         return 0.5 * (p + p.T)
-    # HIGHEST (6-pass bf16 f32 emulation) by default for parity with the
-    # factor-form apply; HIGH (3-pass, ~1e-6 relative in M) halves the
-    # MXU passes with identical iteration counts
+    # HIGHEST (full float32) by default for parity with the
+    # factor-form apply
     hi = jax.lax.Precision.HIGHEST if precision is None else precision
     t = jnp.matmul(s_eff, a_raw.astype(dtype), precision=hi)
     # Horner with an S-folded accumulator: M = r0 S + T (r1 S + T (...))

@@ -2,8 +2,8 @@
 
 The aggregation AMG (ops/amg.py, the pyamg-class replacement for the
 reference's disabled baseline, uibk/deep_preconditioning/test.py:95-98)
-is mesh-agnostic but pays TPU-hostile unstructured gathers in its
-transfers at scale.  On the *structured* scaling family (BASELINE.md:
+is mesh-agnostic but pays unstructured gathers in its transfers at
+scale.  On the *structured* scaling family (BASELINE.md:
 uniform-grid variable-coefficient Poisson) every MG ingredient has a
 gather-free form:
 
@@ -36,9 +36,8 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
-from deeppreconditioning_tpu.ops.pallas_spmv import dia_matvec
 from deeppreconditioning_tpu.sparse.dia import DIAMatrix
 
 
@@ -94,15 +93,11 @@ def _pair_np(z: int) -> np.ndarray:
 def _restrict_grid(g: jax.Array, shape) -> jax.Array:
     """Aggregate-sum a fine GRID to the coarse grid, lane-friendly.
 
-    The naive all-axes reshape-sum splits the minor (lane) dimension
-    2-way, which XLA lowers as cross-lane shuffles — measured ~1.5 ms
-    per transfer at 128^3, ~15x the HBM-traffic estimate, and the
-    whole V-cycle's cost (depth-1 cycle 3.25 ms -> 0.23 ms after this
-    rewrite).  Leading (major/sublane) axes pair-sum via reshape at
-    full speed; the minor axis contracts on the MXU against a 0/1
-    pairing matrix.  Precision.HIGHEST keeps the matmul an exact f32
-    sum — DEFAULT would round the operand to bf16 (3e-2 parity error
-    vs the reshape oracle).
+    Leading axes pair-sum via reshape; the minor axis contracts
+    against a 0/1 pairing matrix instead of splitting the minor
+    dimension 2-way (a strided shuffle).  Precision.HIGHEST keeps the
+    matmul an exact f32 sum — a reduced-precision pass (TF32 on the
+    GPU) would round the operand.
     """
     shape = tuple(int(s) for s in shape)
     nd = len(shape)
@@ -120,8 +115,8 @@ def _restrict_grid(g: jax.Array, shape) -> jax.Array:
 
 def galerkin_coarse_dia(a: DIAMatrix, shape) -> DIAMatrix:
     """P^T A P for piecewise-constant 2x-per-axis aggregates, DIA in,
-    DIA out — reshape-sums on major axes + MXU pair-contraction on the
-    lane axis (see _restrict_grid), no gather.
+    DIA out — reshape-sums on major axes + a pair-contraction on the
+    minor axis (see _restrict_grid), no gather.
 
     For an axis-aligned band value v[i] coupling cell i -> i + e_ax:
     the pair lives inside one aggregate iff i's coordinate along ax is
@@ -206,11 +201,10 @@ def restrict_pc(r: jax.Array, shape) -> jax.Array:
 def prolong_pc(xc: jax.Array, shape) -> jax.Array:
     """P xc: broadcast each aggregate value to its 2^nd fine cells.
 
-    Transpose of restrict_pc in the same lane-friendly form: the minor
-    axis expands on the MXU against the pairing matrix's transpose
-    (jnp.repeat on the lane axis lowers as a cross-lane interleave —
-    the dominant cost of the old cycle), the leading axes by
-    broadcast + reshape (major-axis interleaves are block copies).
+    Transpose of restrict_pc in the same form: the minor axis expands
+    against the pairing matrix's transpose (instead of a jnp.repeat
+    interleave on the minor axis), the leading axes by broadcast +
+    reshape.
     """
     shape = tuple(int(s) for s in shape)
     nd = len(shape)
@@ -336,10 +330,10 @@ def _build_gmg_jit(
             ) * (jnp.arange(lvl_a.n_pad) < lvl_a.n)
             lam = jnp.asarray(0.0, lvl_a.vals.dtype)
             for _ in range(8):
-                w_ = _mv(c_low, _mv(c_up, _mv(lvl_a, v)))
-                lam = jnp.sqrt(w_ @ w_) / jnp.maximum(
-                    jnp.sqrt(v @ v), 1e-30)
-                v = w_ / jnp.maximum(jnp.sqrt(w_ @ w_), 1e-30)
+                w_ = c_low.matvec(c_up.matvec(lvl_a.matvec(v)))
+                lam = jnp.linalg.norm(w_) / jnp.maximum(
+                    jnp.linalg.norm(v), 1e-30)
+                v = w_ / jnp.maximum(jnp.linalg.norm(w_), 1e-30)
             scale = jnp.minimum(1.0, 1.9 / jnp.maximum(lam, 1e-30))
             c_up = c_up.replace(
                 vals=c_up.vals * jnp.sqrt(scale))
@@ -359,23 +353,10 @@ def _build_gmg_jit(
     )
 
 
-# at or below this row count the XLA shifted-slice matvec is as fast
-# as or faster than the Pallas streaming kernel (measured ~0-20 us vs
-# 183 us on the 262k-row Galerkin coarse operator at 128^3) — coarse
-# MG levels run pure XLA; only the finest level streams through Pallas
-_PALLAS_MIN_ROWS = 1 << 19
-
-
-def _mv(a: DIAMatrix, x: jax.Array) -> jax.Array:
-    if a.n_pad >= _PALLAS_MIN_ROWS:
-        return dia_matvec(a, x)
-    return a.matvec(x)
-
-
 def _smooth(lev: GMGLevel, r: jax.Array) -> jax.Array:
     if lev.c_up is None:
         return lev.omega * lev.inv_diag * r
-    return _mv(lev.c_low, _mv(lev.c_up, r))
+    return lev.c_low.matvec(lev.c_up.matvec(r))
 
 
 def gmg_apply(m: GMGPreconditioner, r: jax.Array) -> jax.Array:
@@ -388,13 +369,14 @@ def gmg_apply(m: GMGPreconditioner, r: jax.Array) -> jax.Array:
     def cycle(lvl: int, r: jax.Array) -> jax.Array:
         if lvl == len(m.levels):
             nc = m.coarse_inv.shape[0]
-            z = m.coarse_inv @ r[:nc]
+            z = jnp.matmul(m.coarse_inv, r[:nc],
+                           precision=jax.lax.Precision.HIGHEST)
             return jnp.pad(z, (0, r.shape[0] - nc))
         lev = m.levels[lvl]
         x = _smooth(lev, r)
-        res = r - _mv(lev.a, x)
+        res = r - lev.a.matvec(x)
         xc = cycle(lvl + 1, restrict_pc(res, lev.shape))
         x = x + prolong_pc(xc, lev.shape)
-        return x + _smooth(lev, r - _mv(lev.a, x))
+        return x + _smooth(lev, r - lev.a.matvec(x))
 
     return cycle(0, r)

@@ -4,7 +4,7 @@ Replaces the reference's external C++ ``ilupp`` dependency
 (uibk/deep_preconditioning/test.py:81-93 uses ``ilupp.ichol0`` /
 ``ilupp.icholt``).  The factorization itself is a sequential sparse
 host-side *setup* step (not a device workload); the hot path — applying
-the preconditioner inside PCG — runs on TPU via the level-scheduled
+the preconditioner inside PCG — runs on device via the level-scheduled
 triangular solves in ops/trisolve.py, or as an SpMV with the materialized
 M = L L^T (the reference's apply convention, test.py:88).
 

@@ -1,6 +1,6 @@
 """Constant-coefficient 7-point Poisson stencil — matrix-free SpMV.
 
-The DIA kernel (ops/pallas_spmv.py) is the general variable-coefficient
+The DIA matvec (sparse/dia.py) is the general variable-coefficient
 path: it streams 7 value arrays alongside x (9 words of HBM traffic per
 row).  The synthetic Poisson benchmark family (BASELINE.md: 3-D 7-point,
 64^3 -> 256^3) has *constant* interior coefficients, so the matrix needs
@@ -10,10 +10,7 @@ zero ghost planes.  HBM traffic drops to 2 words/row (read x, write y)
 
 Implementation note: this op is pure XLA — six shifted adds over a 3-D
 grid are exactly the pattern XLA's fusion engine compiles to a single
-streaming kernel, and measured throughput matches the hand-written
-Pallas attempt without its Mosaic fragility (a hand-rolled kernel with
-lane-rolls faulted on v5e hardware while passing in the interpreter;
-the fusion path is the robust speed-of-light formulation here).
+streaming kernel.
 """
 
 from __future__ import annotations
@@ -49,7 +46,7 @@ def poisson3d_stencil_matvec(x: jax.Array, shape) -> jax.Array:
     return out.at[:n].set(y.reshape(-1))
 
 
-from flax import struct  # noqa: E402
+from deeppreconditioning_tpu.utils import struct  # noqa: E402
 
 
 @struct.dataclass
@@ -60,14 +57,10 @@ class StencilOperator3D:
     ghost entries are zero and *stay* zero through all linear CG
     updates, so the matvec is pure shifted slices with no pad/scatter.
 
-    Measurement note (v5e, dependency-chained): the flat
-    ``poisson3d_stencil_matvec`` formulation is ~35% *faster* despite
-    its pad-in/scatter-out copies — (n+2)-strided slabs are
-    lane-hostile to Mosaic/XLA vector loads, while pad+shift over
-    contiguous power-of-two grids fuses into one streaming kernel.
-    Prefer ``stencil_matvec_flat`` in solver hot loops; this padded
-    operator remains for layouts where the ghost planes are needed
-    (e.g. halo-exchange variants).
+    The flat ``poisson3d_stencil_matvec`` formulation (pad+shift over
+    contiguous power-of-two grids) is the one the solver loops use;
+    this padded operator remains for layouts where the ghost planes are
+    needed (e.g. halo-exchange variants).
 
     A static-only pytree: usable directly as the ``a_data`` operand of
     solvers.cg.  Use ``embed``/``extract`` at the solve boundaries.
@@ -122,8 +115,8 @@ def stencil_matvec_padded(op: StencilOperator3D, xp: jax.Array
 
 def stencil_matvec_flat(op: StencilOperator3D, x: jax.Array
                         ) -> jax.Array:
-    """Solver-compatible matvec on FLAT interior vectors — the fast
-    formulation on v5e (see StencilOperator3D measurement note)."""
+    """Solver-compatible matvec on FLAT interior vectors (see the
+    StencilOperator3D note)."""
     return poisson3d_stencil_matvec(x, op.shape)
 
 

@@ -1,6 +1,6 @@
 """Sparse 2-D convolution as gather-GEMM over precomputed index plans.
 
-TPU-native replacement for the spconv CUDA engine the reference models
+JAX replacement for the spconv CUDA engine the reference models
 ride on (reference: uibk/deep_preconditioning/model.py:27-40 uses
 ``SparseConv2d`` k in {1,2} with asymmetric padding; model.py:69-137 adds
 ``SubMConv2d``, strided ``SparseConv2d``, ``SparseInverseConv2d`` and
@@ -18,8 +18,7 @@ static shapes, so we make the split explicit and ahead-of-time:
     forward pass;
   * `apply_sparse_conv` (device) computes
     ``out = sum_k features[gather[k]] @ W[k] + b`` — K gathers plus K
-    (nnz x Cin) @ (Cin x Cout) matmuls that XLA fuses and tiles onto the
-    MXU.  Stride-1 semantics mean each output site receives at most one
+    (nnz x Cin) @ (Cin x Cout) matmuls that XLA fuses.  Stride-1 semantics mean each output site receives at most one
     contribution per kernel offset, so no scatter is ever needed.
 
 Topology is expressed through *site-set levels*: every layer maps one
@@ -39,7 +38,7 @@ from typing import List, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 @dataclass(frozen=True)
@@ -351,7 +350,8 @@ def apply_sparse_conv(
     k = weights.shape[0]
     out = jnp.zeros((plan.gather.shape[1], weights.shape[2]), features.dtype)
     for i in range(k):
-        out = out + feat_ext[plan.gather[i]] @ weights[i]
+        out = out + jnp.matmul(feat_ext[plan.gather[i]], weights[i],
+                               precision=jax.lax.Precision.HIGHEST)
     if bias is not None:
         out = out + bias[None, :]
     return jnp.where(plan.valid[:, None], out, 0)

@@ -1,4 +1,4 @@
-"""Sparse triangular solve via level scheduling — the TPU-correct apply
+"""Sparse triangular solve via level scheduling — the data-parallel apply
 path for factored preconditioners (z = L^-T L^-1 r).
 
 The reference never tri-solves (it applies preconditioners as matvecs,
@@ -16,8 +16,7 @@ static shapes throughout, one `lax.scan` over levels on device.
 
 Device side (`tri_solve_lower` / `tri_solve_upper`): per level,
 ``x[rows] = (b[rows] - sum_k vals * x[cols]) / diag`` — a gather,
-a row-sum, and a scatter per wave; everything stays in registers/VMEM at
-these sizes.
+a row-sum, and a scatter per wave.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 @struct.dataclass
@@ -202,7 +201,7 @@ def ic_apply(lower: TriSchedule, upper_flipped: TriSchedule,
 # this is a *finite* iteration — it converges exactly in n_levels sweeps
 # — and truncating at K < n_levels yields the order-K Neumann-series
 # approximation of L^-1.  Every sweep is one SpMV: fixed trip count, no
-# data-dependent control flow, MXU/VPU-friendly (SURVEY.md §2.4 item 4's
+# data-dependent control flow (SURVEY.md §2.4 item 4's
 # "block-Jacobi sweeps" strategy).
 
 @struct.dataclass

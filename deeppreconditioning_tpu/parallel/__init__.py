@@ -2,11 +2,11 @@
 
 The reference is strictly single-GPU (SURVEY.md §2.4: no torch.distributed
 anywhere; CUDA single-device asserted at data_set.py:53).  This package is
-therefore new capability mandated by the TPU rebuild: scale the linear
-system dimension across chips (row-partitioned SpMV + halo exchange +
-psum'd CG scalars) and the training batch across chips (data parallelism),
+therefore new capability of this rebuild: scale the linear
+system dimension across devices (row-partitioned SpMV + halo exchange +
+psum'd CG scalars) and the training batch across devices (data parallelism),
 all via jax.sharding.Mesh + shard_map so the same code runs on a virtual
-CPU mesh in tests and a real pod slice in production.
+CPU mesh in tests and on several GPUs in production.
 """
 
 from deeppreconditioning_tpu.parallel.partition import (

@@ -18,7 +18,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 from deeppreconditioning_tpu.ops.ic0 import ic0_factor
 from deeppreconditioning_tpu.ops.trisolve import (

@@ -19,7 +19,7 @@ contiguous and static), so the device apply is two ppermutes and two
 fixed-width gather-rowsums — numerically identical to the dense
 ``M = C C^T`` apply, hence identical PCG iteration counts.  The halo
 ``ppermute`` for t's exchange depends on local t only, and z's interior
-gather is independent of the incoming halo, so XLA overlaps the ICI
+gather is independent of the incoming halo, so XLA overlaps the
 transfer with the gather-FMA exactly as in parallel/pcg._matvec_halo.
 
 The polynomial wrap q(B), B = C^T A C (models/neural_fsai.py) composes
@@ -38,7 +38,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 from deeppreconditioning_tpu.parallel.pcg import _matvec_halo
 

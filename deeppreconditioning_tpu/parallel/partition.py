@@ -17,7 +17,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 from deeppreconditioning_tpu.sparse.ell import ELLMatrix
 

@@ -12,7 +12,7 @@ becomes a local partial dot + ``jax.lax.psum`` over the mesh axis
   * ``halo`` — exchange fixed-width boundary slabs with ring neighbors
     via ``ppermute`` (SURVEY.md §2.4 item 2).  Exact when the matrix
     bandwidth <= halo width (FVM/Poisson row orderings); communication
-    is O(halo) instead of O(n) and rides the ICI ring.
+    is O(halo) instead of O(n).
 
 Preconditioner applies are shard-local (diagonal / block-Jacobi), so
 z = M r needs no communication (SURVEY.md §2.4 item 4).
@@ -28,10 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 from deeppreconditioning_tpu.parallel.partition import ShardedELL
 from deeppreconditioning_tpu.solvers.cg import CGResult
@@ -70,7 +67,7 @@ def _matvec_halo(cols, vals, x_local, axis_name, halo, n_total):
     The accumulation is split into an *interior* pass that reads only
     ``x_local`` and a *boundary* pass that reads only the halo slabs:
     the interior gather-FMA has no data dependence on the collectives,
-    so XLA's latency-hiding scheduler computes it while the ICI
+    so XLA's latency-hiding scheduler computes it while the
     transfers are in flight (SURVEY §2.4 item 2's mandated overlap).
     Cost: the (cols, vals) operands are streamed twice; interior work —
     the bulk at FVM bandwidths — hides the communication latency.
@@ -127,7 +124,9 @@ def _pcg_sharded_impl(
             )
 
         def pdot(u, v):
-            return jax.lax.psum(jnp.dot(u, v), axis_name)
+            return jax.lax.psum(
+                jnp.dot(u, v, precision=jax.lax.Precision.HIGHEST),
+                axis_name)
 
         x = jnp.zeros_like(b)
         r = b - matvec(x)

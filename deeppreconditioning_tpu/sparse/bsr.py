@@ -1,10 +1,10 @@
-"""BSR (block-sparse-row) matrix — the MXU path for unstructured sparsity.
+"""BSR (block-sparse-row) matrix — the dense-tile path for unstructured
+sparsity.
 
-ELL/DIA feed the VPU; for matrices without banded structure the TPU-
-native answer is block sparsity: nonzeros grouped into dense
-(block_size x block_size) tiles so the hot loop is MXU matmuls over a
-scalar-prefetched block index list (the same machinery as block-sparse
-attention kernels).  Fill-in from blocking is the usual trade: FVM
+ELL/DIA are elementwise streams; for matrices without banded structure
+block sparsity groups nonzeros into dense (block_size x block_size)
+tiles so the hot loop is small matmuls over a block index list (the
+same machinery as block-sparse attention kernels).  Fill-in from blocking is the usual trade: FVM
 matrices with bandwidth-local orderings block well.
 
 Layout (ELL-of-blocks, static shapes): ``blocks`` is
@@ -18,7 +18,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 @struct.dataclass
@@ -60,7 +60,8 @@ class BSRMatrix:
         )
         gathered = xb[self.block_cols]  # (R, S, bs)
         return jnp.einsum(
-            "rsij,rsj->ri", self.blocks, gathered
+            "rsij,rsj->ri", self.blocks, gathered,
+            precision=jax.lax.Precision.HIGHEST,
         ).reshape(-1)
 
     @staticmethod

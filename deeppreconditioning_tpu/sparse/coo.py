@@ -1,6 +1,6 @@
 """Batched COO sparse tensor — the framework's exchange format.
 
-TPU-native equivalent of spconv's ``SparseConvTensor`` (reference:
+JAX equivalent of spconv's ``SparseConvTensor`` (reference:
 uibk/deep_preconditioning/data_set.py:121-125): a batch of sparse 2-D
 "images" (here: matrices) stored as one flat list of ``(batch, row, col)``
 index triplets with per-entry feature vectors.
@@ -9,7 +9,7 @@ Differences from the reference, driven by XLA's compilation model:
   * nnz is padded to a static bucket; a boolean ``valid`` mask marks real
     entries.  Padded entries carry index (0, 0, 0) and value 0, and every op
     masks before scattering, so padding is inert.
-  * immutable pytree (flax.struct) — functional transforms compose.
+  * immutable pytree (utils/struct.py) — functional transforms compose.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 def pad_to_bucket(n: int, bucket: int = 256) -> int:

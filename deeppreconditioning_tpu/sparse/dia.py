@@ -1,4 +1,4 @@
-"""DIA (diagonal) sparse format — the zero-gather TPU SpMV layout.
+"""DIA (diagonal) sparse format — the zero-gather SpMV layout.
 
 FVM pressure-Poisson matrices on structured orderings are *banded*: all
 nonzeros live on a handful of fixed diagonal offsets (5 for 2-D, 7 for
@@ -7,11 +7,10 @@ nonzeros live on a handful of fixed diagonal offsets (5 for 2-D, 7 for
     y[i] = sum_d  vals[d][i] * x[i + off_d]
 
 — contiguous shifted reads and fused multiply-adds, no gather at all.
-This is the speed-of-light formulation for the VPU: the kernel is purely
-HBM-bandwidth-bound (read vals + x, write y), which is the roofline the
-BASELINE.md SpMV target asks for.  The Pallas kernel lives in
-ops/pallas_spmv.py; this container also provides a pure-jnp matvec that
-XLA fuses well (fallback and correctness oracle).
+The matvec is purely HBM-bandwidth-bound (read vals + x, write y) at
+0.5 flop/byte.  ``DIAMatrix.matvec`` is the one implementation: XLA
+fuses it into a single streaming loop (no hand-written kernel beats it
+by more than the margin to a plain copy — PERF.md, "Kernel decisions").
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 @struct.dataclass

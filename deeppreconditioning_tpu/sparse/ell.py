@@ -1,10 +1,9 @@
-"""ELLPACK sparse matrix — the TPU-preferred SpMV layout.
+"""ELLPACK sparse matrix — the general static-shape SpMV layout.
 
 FVM pressure-Poisson matrices have a near-uniform ~5-7 nnz per row, so
 padding each row to a fixed slot count wastes little and buys fully static,
 vectorizable shapes: SpMV becomes `gather + multiply + row-sum`, which XLA
-maps onto the VPU with one gather, and which the Pallas kernel in
-ops/spmv.py streams at HBM bandwidth.
+fuses around one gather.
 
 Sentinel convention: empty slots store column index `n` (one past the end)
 with value 0; `x` is padded with one trailing zero so gathers stay in
@@ -16,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from deeppreconditioning_tpu.utils import struct
 
 
 def csr_to_ell_arrays(csr, n_pad: int, k: int | None = None,

@@ -7,13 +7,15 @@ duration/iteration metrics (train.py:67-110), early stopping on the
 validation loss with patience (train.py:113-136), per-epoch
 checkpointing, and the four dvclive metric series.
 
-TPU-native differences:
+Differences from the reference:
   * the train step is one jitted program (forward + loss + grad + Adam)
     reusing a single compiled executable across all batches/epochs thanks
     to dataset-global static buckets;
   * validation PCG is *batched on device* (vmap over the dense PCG) rather
     than a per-sample Python loop;
-  * checkpoints keep params + optimizer state + step so training resumes
+  * checkpoints (``.npz``: arrays under ``params/...`` and
+    ``opt_state/...`` keys, everything else as JSON under ``__meta__``)
+    keep params + optimizer state + step so training resumes
     exactly (the reference saves model weights only and always restarts,
     train.py:186);
   * we save both ``latest`` and the true best-by-val-loss checkpoint (the
@@ -23,6 +25,7 @@ TPU-native differences:
 
 from __future__ import annotations
 
+import json
 import time
 from functools import partial
 from pathlib import Path
@@ -32,7 +35,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import serialization
 
 from deeppreconditioning_tpu import metrics as metrics_lib
 from deeppreconditioning_tpu.data.datasets import DeviceBatch
@@ -46,6 +48,10 @@ from deeppreconditioning_tpu.solvers.cg import (
     preconditioned_conjugate_gradient,
 )
 from deeppreconditioning_tpu.utils.logging import MetricsLogger
+
+# HIGHEST: a float32 contraction with no precision set may run in TF32 on
+# the GPU (about three decimal digits)
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 class TrainState(NamedTuple):
@@ -108,7 +114,7 @@ def _loss_from_batch(model, params, batch: DeviceBatch,
     l_dense = output_to_dense(values, batch.plans[-1], n)
     a_tril = batch.systems.to_dense()
     if loss == "pcg_loss":
-        m = jnp.einsum("bij,bkj->bik", l_dense, l_dense)
+        m = _einsum("bij,bkj->bik", l_dense, l_dense)
         return metrics_lib.pcg_residual_loss(
             a_tril, m, batch.right_hand_sides
         )
@@ -151,7 +157,7 @@ def _validate_device(model: PreconditionerNet, params, batch: DeviceBatch,
     loss = metrics_lib.inverse_loss(a_tril, l_dense)
 
     a_full = metrics_lib.symmetrize_tril(a_tril)
-    m = jnp.einsum("bij,bkj->bik", l_dense, l_dense)
+    m = _einsum("bij,bkj->bik", l_dense, l_dense)
 
     def solve_one(a, b, mm):
         return preconditioned_conjugate_gradient(
@@ -246,7 +252,7 @@ def _fsai_validate_device(model, params, plans, feats, a_tril,
     a_full = metrics_lib.symmetrize_tril(a_tril)
     m = batched_dense_m(plans, out, a_full)
     eye = jnp.eye(a_full.shape[-1], dtype=a_full.dtype)[None]
-    ma = jnp.einsum("bij,bjk->bik", m, a_full)
+    ma = _einsum("bij,bjk->bik", m, a_full)
     loss = jnp.sqrt(jnp.sum((ma - eye) ** 2, axis=(1, 2))).mean()
 
     def solve_one(a, b, mm):
@@ -297,7 +303,7 @@ def train_neural_fsai(
     loss: str = "inverse_loss",
     pcg_steps: int = 16,
     select_by: str = "loss",  # "loss" | "iterations": which validation
-    # metric picks best.msgpack (CG iterations is the deployed metric;
+    # metric picks best.npz (CG iterations is the deployed metric;
     # val loss is the reference's criterion, train.py:180)
     mesh=None,  # optional jax.sharding.Mesh with a "dp" axis
     init_from: Path | str | None = None,  # warm-start params (fresh
@@ -334,17 +340,15 @@ def train_neural_fsai(
     best_val = float("inf")
 
     def _ckpt(path, state):
-        path.parent.mkdir(parents=True, exist_ok=True)
-        payload = {
-            "params": jax.device_get(state.params),
-            "opt_state": jax.device_get(state.opt_state),
+        write_checkpoint(path, {
+            "params": state.params,
+            "opt_state": state.opt_state,
             "step": int(state.step),
             "width": model.width,
             "hidden": model.hidden,
             "poly_degree": model.poly_degree,
             "power": int(getattr(plan_provider, "power", 0)),
-        }
-        path.write_bytes(serialization.to_bytes(payload))
+        })
 
     for epoch in range(max_epochs):
         epoch_losses = []
@@ -384,13 +388,13 @@ def train_neural_fsai(
         logger.log_metric("val/metric/iterations", val_iters)
         logger.next_step()
 
-        _ckpt(checkpoint_dir / "latest.msgpack", state)
+        _ckpt(checkpoint_dir / "latest.npz", state)
         criterion = val_iters if select_by == "iterations" else val_loss
         if criterion < best_val:
             best_val = criterion
-            _ckpt(checkpoint_dir / "best.msgpack", state)
+            _ckpt(checkpoint_dir / "best.npz", state)
 
-        # early-stop on the same criterion that picks best.msgpack:
+        # early-stop on the same criterion that picks best.npz:
         # with select_by="iterations" the surrogate val loss may rise
         # while the deployed metric keeps falling
         if stopper(criterion):
@@ -400,26 +404,65 @@ def train_neural_fsai(
     return state
 
 
-def save_checkpoint(path: Path, model, state: TrainState) -> None:
+def _key_name(entry) -> str:
+    for attr in ("key", "idx", "name"):
+        if hasattr(entry, attr):
+            return str(getattr(entry, attr))
+    raise TypeError(f"unsupported pytree path entry {entry!r}")
+
+
+def _flat_arrays(tree) -> dict:
+    """{'a/b/c': array} for every leaf of a pytree, keyed by its path."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(_key_name(e) for e in path): np.asarray(leaf)
+            for path, leaf in leaves}
+
+
+def write_checkpoint(path: Path, payload: dict) -> None:
+    """Write ``payload`` as one ``.npz``: the ``params`` and
+    ``opt_state`` pytrees as path-keyed arrays, every other entry
+    (step, model widths, provenance) as JSON under ``__meta__``."""
+    path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {
+    arrays, meta = {}, {}
+    for key, value in payload.items():
+        if key in ("params", "opt_state"):
+            for sub, arr in _flat_arrays(jax.device_get(value)).items():
+                arrays[f"{key}/{sub}"] = arr
+        else:
+            meta[key] = value
+    arrays["__meta__"] = np.asarray(json.dumps(meta))
+    with path.open("wb") as fio:
+        np.savez(fio, **arrays)
+
+
+def save_checkpoint(path: Path, model, state: TrainState) -> None:
+    write_checkpoint(path, {
         "params": state.params,
         "opt_state": state.opt_state,
         "step": int(state.step),
         "channels": list(model.channels),
-    }
-    path.write_bytes(serialization.to_bytes(payload))
+    })
 
 
 def load_checkpoint(path: Path) -> dict:
     """Restore a checkpoint payload (full resume, unlike the reference).
 
-    Returns {"params", "opt_state", "step", "channels"}; flax params are
-    plain nested dicts, so ``payload["params"]`` feeds ``model.apply``
-    directly and ``payload["opt_state"]`` can be rebuilt into an optax
-    state via tree-unflattening against ``tx.init(params)``.
+    Returns the metadata entries plus ``params`` and ``opt_state`` as
+    nested dicts of numpy arrays: ``payload["params"]`` feeds
+    ``model.apply`` directly, and ``resume_state`` rebuilds the optax
+    state from ``payload["opt_state"]`` by path.
     """
-    payload = serialization.msgpack_restore(Path(path).read_bytes())
+    with np.load(Path(path), allow_pickle=False) as data:
+        payload = json.loads(str(data["__meta__"]))
+        for key in data.files:
+            if key == "__meta__":
+                continue
+            *parents, leaf = key.split("/")
+            node = payload
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = data[key]
     return payload
 
 
@@ -428,9 +471,11 @@ def resume_state(path: Path, tx) -> TrainState:
     payload = load_checkpoint(path)
     params = payload["params"]
     opt_template = tx.init(params)
-    flat_saved = jax.tree.leaves(payload["opt_state"])
-    treedef = jax.tree.structure(opt_template)
-    opt_state = jax.tree.unflatten(treedef, flat_saved)
+    saved = _flat_arrays(payload.get("opt_state", {}))
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(opt_template)
+    opt_state = jax.tree.unflatten(treedef, [
+        saved["/".join(_key_name(e) for e in p)] for p, _ in leaves
+    ])
     return TrainState(params, opt_state, jnp.int32(payload["step"]))
 
 
@@ -517,11 +562,11 @@ def train(
             logger.log_metric("val/metric/iterations", val_iters)
             logger.next_step()
 
-        save_checkpoint(checkpoint_dir / "latest.msgpack", model, state)
+        save_checkpoint(checkpoint_dir / "latest.npz", model, state)
         criterion = val_iters if select_by == "iterations" else val_loss
         if criterion < best_val:
             best_val = criterion
-            save_checkpoint(checkpoint_dir / "best.msgpack", model, state)
+            save_checkpoint(checkpoint_dir / "best.npz", model, state)
 
         # stop on the checkpoint-selection criterion (see train_neural_fsai)
         if stopper(criterion):

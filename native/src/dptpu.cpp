@@ -3,7 +3,7 @@
 // The reference leans on two external native components: the spconv CUDA
 // engine's indice-generation step (reference model.py:27-40 rides it) and
 // the ilupp C++ incomplete-factorization library (reference test.py:81-93).
-// This library provides the TPU-framework equivalents of their host-side
+// This library provides this framework's equivalents of their host-side
 // parts — everything that prepares static index plans and factors for the
 // XLA device code:
 //

@@ -40,7 +40,7 @@ def main() -> None:
         stage="test", batch_size=1, specs=specs, shuffle=False,
         root=root, family=family,
     )
-    payload = load_checkpoint(REPO / params.checkpoint_dir / "best.msgpack")
+    payload = load_checkpoint(REPO / params.checkpoint_dir / "best.npz")
     model = NeuralFSAI(
         width=int(payload["width"]),
         hidden=int(payload.get("hidden", 64)),

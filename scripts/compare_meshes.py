@@ -118,7 +118,7 @@ def main() -> None:
     args = parser.parse_args()
 
     payload = load_checkpoint(
-        Path(params.checkpoint_dir) / "best.msgpack"
+        Path(params.checkpoint_dir) / "best.npz"
     )
     is_fsai = params.model == "NeuralFSAI"
     if is_fsai:

@@ -8,7 +8,7 @@ pressure-Poisson training distribution.  Writes
 assets/results/frames/{table,totals,batched}.csv.
 
 Usage: python scripts/frames_bench.py [--power 2] [--cases 200]
-       [--checkpoint assets/checkpoints_frames/best.msgpack]
+       [--checkpoint assets/checkpoints_frames/best.npz]
 """
 
 import argparse
@@ -42,10 +42,10 @@ def main() -> None:
     parser.add_argument(
         "--checkpoint",
         default=str(REPO / "assets" / "checkpoints_frames"
-                    / "best.msgpack"),
+                    / "best.npz"),
     )
     parser.add_argument("--platform", default=None,
-                        choices=["cpu", "tpu"])
+                        choices=["cpu", "gpu"])
     args = parser.parse_args()
 
     import jax

@@ -38,8 +38,7 @@ def main() -> None:
     g = args.grid
     shape = (g, g, g)
     n = g ** 3
-    # flat formulation: measures ~35% faster per matvec than the
-    # ghost-padded layout on v5e (see ops/pallas_stencil.py note)
+    # flat formulation (see the ops/pallas_stencil.py note)
     op = StencilOperator3D(shape=shape)
     rng = np.random.default_rng(0)
     b = rng.standard_normal(n).astype(np.float32)

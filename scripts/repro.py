@@ -10,7 +10,7 @@ to re-run without ``--force`` — presence-only skipping silently reused
 a stale checkpoint after a data regen (VERDICT r3 missing #3).
 
     generate  ->  assets/data/raw/sludge_patterns/
-    train     ->  assets/checkpoints*/best.msgpack
+    train     ->  assets/checkpoints*/best.npz
     test      ->  assets/results/table.csv
 
 Usage: python scripts/repro.py [--force] [--stages generate,train,test]
@@ -96,7 +96,7 @@ def save_lock(lock: dict) -> None:
 
 def build_stages(params) -> List[Stage]:
     data_dir = REPO / params.data_root / "sludge_patterns"
-    ckpt = REPO / params.checkpoint_dir / "best.msgpack"
+    ckpt = REPO / params.checkpoint_dir / "best.npz"
     table = REPO / params.results_dir / "table.csv"
     # params->stage mapping mirrors the reference's dvc.yaml:8-27
     # invalidation declarations, extended with the rebuild's keys

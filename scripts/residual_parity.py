@@ -2,7 +2,7 @@
 residual curves must match the reference protocol within tolerance).
 
 For each of the first N test cases, runs PCG in float64 (the reference's
-arithmetic, cg.py:58) and float32 (the TPU performance dtype) for every
+arithmetic, cg.py:58) and float32 (the device performance dtype) for every
 technique — vanilla, jacobi, incomplete cholesky, fsai, and the learned
 flagship (when a checkpoint exists) — dumps both residual curves, and
 reports the iteration-count deltas.  The f64 run *is* the reference
@@ -64,7 +64,7 @@ def main() -> None:
     params = params_show()
     model = model_params = None
     learned_power = 4
-    ckpt = Path(params.checkpoint_dir) / "best.msgpack"
+    ckpt = Path(params.checkpoint_dir) / "best.npz"
     if params.model == "NeuralFSAI" and ckpt.exists():
         from deeppreconditioning_tpu.models import NeuralFSAI
         from deeppreconditioning_tpu.train.trainer import load_checkpoint

@@ -55,7 +55,7 @@ def main() -> None:
     )
 
     ckpt_path = args.checkpoint or (
-        Path(params.checkpoint_dir) / "best.msgpack"
+        Path(params.checkpoint_dir) / "best.npz"
     )
     payload = load_checkpoint(ckpt_path)
     model_params = payload["params"]

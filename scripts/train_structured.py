@@ -17,7 +17,7 @@ validation metric, train.py:102-108).
 
 Usage: python scripts/train_structured.py [--shape 12,12,12]
     [--samples 32] [--steps 400] [--lr 2e-3] [--power 2] [--degree 1]
-    [--pcg-steps 12] [--platform cpu|tpu] [--out PATH]
+    [--pcg-steps 12] [--platform cpu|gpu] [--out PATH]
 """
 
 import argparse
@@ -50,11 +50,11 @@ def main() -> None:
                         "deployment benchmark (scaling_learned --rhs)")
     parser.add_argument("--seed", type=int, default=69)
     parser.add_argument("--platform", default=None,
-                        choices=["cpu", "tpu"])
+                        choices=["cpu", "gpu"])
     parser.add_argument(
         "--out",
         default=str(REPO / "assets" / "checkpoints_structured"
-                    / "best.msgpack"),
+                    / "best.npz"),
     )
     args = parser.parse_args()
 
@@ -66,9 +66,9 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
     import optax
-    from flax import serialization
 
     from deeppreconditioning_tpu.data.poisson import poisson_coeff_dia
+    from deeppreconditioning_tpu.train.trainer import write_checkpoint
     from deeppreconditioning_tpu.ops.structured_fsai import (
         build_structured_plan,
         dia_sorted_by_offset,
@@ -112,7 +112,7 @@ def main() -> None:
     a_vals = jnp.asarray(np.stack(mats))  # (S, n_diag, n_pad)
     b_all = jnp.asarray(np.stack(rhss))  # (S, n_pad)
 
-    # flax-convention manual init (lecun-normal kernels, zero biases;
+    # lecun-normal kernels, zero biases (the NeuralFSAI init;
     # alpha/beta/q zero-init => training starts at classical FSAI)
     def lecun(key, shape_):
         fan_in = shape_[0]
@@ -193,7 +193,6 @@ def main() -> None:
                   flush=True)
 
     out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     payload = {
         "params": {"params": jax.tree.map(np.asarray, best[1])},
         "width": w,
@@ -204,9 +203,9 @@ def main() -> None:
         "train_shape": list(shape),
         "sigma": [lo, hi],
         "rhs": args.rhs,
-        "final_loss": best[0],
+        "final_loss": float(best[0]),
     }
-    out.write_bytes(serialization.to_bytes(payload))
+    write_checkpoint(out, payload)
     print(f"saved {out} (loss {best[0]:+.4f})", flush=True)
 
 

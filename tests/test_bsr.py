@@ -1,12 +1,9 @@
-"""BSR container + Pallas block-sparse kernel tests (interpret mode)."""
-
-import functools
+"""BSR container tests."""
 
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
 
-import deeppreconditioning_tpu.ops.pallas_bsr as pb
 from deeppreconditioning_tpu.data.fvm import generate_sludge_case
 from deeppreconditioning_tpu.sparse.bsr import BSRMatrix
 
@@ -26,45 +23,6 @@ def test_bsr_matvec_matches_scipy():
     y = np.asarray(bsr.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(y[:n], a @ x[:n], rtol=1e-10,
                                atol=1e-12)
-
-
-def test_bsr_pallas_matmat_interpret():
-    a = _fvm_matrix()
-    n = a.shape[0]
-    bsr = BSRMatrix.from_scipy(a, block_size=32, dtype=jnp.float32)
-    rng = np.random.default_rng(2)
-    m = 8
-    x = np.zeros((bsr.n_pad, m), np.float32)
-    x[:n] = rng.standard_normal((n, m)).astype(np.float32)
-
-    orig = pb.pl.pallas_call
-    pb.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        y = np.asarray(pb.bsr_matmat_pallas(bsr, jnp.asarray(x)))
-    finally:
-        pb.pl.pallas_call = orig
-    y_ref = a @ x[:n]
-    np.testing.assert_allclose(y[:n], y_ref, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(y[n:], 0.0, atol=1e-6)
-
-
-def test_bsr_pallas_matvec_interpret():
-    a = _fvm_matrix()
-    n = a.shape[0]
-    bsr = BSRMatrix.from_scipy(a, block_size=32, dtype=jnp.float32)
-    rng = np.random.default_rng(3)
-    x = np.zeros(bsr.n_pad, np.float32)
-    x[:n] = rng.standard_normal(n).astype(np.float32)
-
-    orig = pb.pl.pallas_call
-    pb.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        y = np.asarray(
-            pb.bsr_matvec_pallas(bsr, jnp.asarray(x), lanes=8)
-        )
-    finally:
-        pb.pl.pallas_call = orig
-    np.testing.assert_allclose(y[:n], a @ x[:n], rtol=1e-4, atol=1e-4)
 
 
 def test_bsr_random_pattern():

@@ -32,7 +32,7 @@ def test_sludge_dataset_batches(sludge_root):
     bsz, nnz0, c = batch.features.shape
     assert bsz == 2 and c == 1
     assert batch.solutions.shape == batch.right_hand_sides.shape
-    assert batch.solutions.shape[1] % 128 == 0  # MXU-friendly dof_pad
+    assert batch.solutions.shape[1] % 128 == 0  # dof_pad tiles cleanly
     assert len(batch.plans) == len(SPECS)
     # identical shapes across batches -> single compiled executable
     b2 = ds[1]

@@ -2,7 +2,7 @@
 
 The reference pins seeds and forces deterministic kernels
 (train.py:24-37: seed 69, use_deterministic_algorithms, cudnn flags).
-XLA is deterministic by default on CPU/TPU; these tests pin the
+XLA is deterministic by default on the CPU; these tests pin the
 framework-level contract: same seed -> same init, same data, same loss.
 """
 

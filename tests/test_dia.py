@@ -1,8 +1,6 @@
-"""DIA container + Pallas SpMV kernel tests (interpret mode on CPU)."""
+"""DIA container tests: matvec, dense/scipy round trips, Poisson
+builders."""
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
@@ -54,40 +52,6 @@ def test_poisson_dia_3d_structure():
     assert (np.diag(dense) == 6.0).all()
     eig = np.linalg.eigvalsh(dense)
     assert eig.min() > 0
-
-
-def test_pallas_dia_kernel_interpret():
-    """Kernel correctness via the Pallas interpreter (no TPU needed)."""
-    from jax.experimental import pallas as pl  # noqa: F401
-    import deeppreconditioning_tpu.ops.pallas_spmv as ps
-
-    a = poisson_dia((32, 32), dtype=jnp.float32)
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.standard_normal(a.n_pad), jnp.float32)
-
-    # monkeypatch pallas_call to interpret mode
-    orig = ps.pl.pallas_call
-    ps.pl.pallas_call = functools.partial(orig, interpret=True)
-    try:
-        # tile=512 >= halo(32): rolling-window kernel (x traffic 1x)
-        y_roll = np.asarray(ps.dia_matvec_pallas(a, x, tile=512))
-        # tile=16 < halo: big-span fallback kernel
-        y_span = np.asarray(ps.dia_matvec_pallas(a, x, tile=16))
-        # 3-D offsets across several tile boundaries, auto tile pick
-        a3 = poisson_dia((12, 12, 12), dtype=jnp.float32)
-        x3 = jnp.asarray(
-            np.random.default_rng(2).standard_normal(a3.n_pad),
-            jnp.float32,
-        )
-        y3 = np.asarray(ps.dia_matvec_pallas(a3, x3))
-    finally:
-        ps.pl.pallas_call = orig
-    y_ref = np.asarray(a.matvec(x))
-    np.testing.assert_allclose(y_roll, y_ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(y_span, y_ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        y3, np.asarray(a3.matvec(x3)), rtol=1e-5, atol=1e-5
-    )
 
 
 def test_dia_to_scipy_symmetric_and_matches_matvec():

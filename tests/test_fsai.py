@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from deeppreconditioning_tpu.ops.fsai import (
@@ -265,40 +266,58 @@ def test_fsai_values_lookup_matches_dense_variant():
                                rtol=1e-12, atol=1e-14)
 
 
-def test_masked_gauss_jordan_pallas_interpret():
-    """The in-VMEM Pallas Gauss-Jordan kernel (TPU batched-setup hot
-    path) matches the XLA form in interpret mode."""
-    from functools import partial
+@pytest.mark.parametrize("w", [7, 13, 24])
+def test_masked_gauss_jordan_pallas_interpret(w):
+    """The batched local solves — the lane-major Gauss-Jordan and the
+    row-major entry point that goes through it — solve SPD systems like
+    numpy.linalg.solve at the widths the setups use."""
+    import jax.numpy as jnp
 
+    from deeppreconditioning_tpu.ops import gauss_jordan as gj
+
+    rng = np.random.default_rng(w)
+    n = 200
+    a = rng.standard_normal((n, w, w))
+    a = a @ a.transpose(0, 2, 1) + 3 * np.eye(w)
+    e = np.zeros((n, w))
+    e[np.arange(n), rng.integers(0, w, n)] = 1.0
+    ref = np.linalg.solve(a, e[..., None])[..., 0]
+    sub, rhs = jnp.asarray(a, jnp.float32), jnp.asarray(e, jnp.float32)
+    lanes = gj.gauss_jordan_lanes(gj.to_lanes(sub, rhs))
+    rows = gj.solve_batched(sub, rhs)
+    # float32 elimination without pivoting on systems of condition
+    # number up to ~1e3: ~1e-4 relative
+    np.testing.assert_allclose(np.asarray(lanes).T, ref, rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_array_equal(np.asarray(rows), np.asarray(lanes).T)
+
+
+@pytest.mark.parametrize("w", [4, 13])
+def test_gauss_jordan_gradient_rule(w):
+    """Autodiff through the unpivoted elimination gives the gradient of
+    a linear solve (checked against jnp.linalg.solve's), for
+    non-symmetric systems too."""
     import jax
     import jax.numpy as jnp
-    from jax.experimental import pallas as pl
 
-    from deeppreconditioning_tpu.ops.fsai import (
-        _gj_kernel,
-        _masked_gauss_jordan_xla,
-    )
+    from deeppreconditioning_tpu.ops import gauss_jordan as gj
 
-    rng = np.random.default_rng(0)
-    r, w = 128, 13
-    a = rng.standard_normal((r, w, w)).astype(np.float32)
-    a = a @ a.transpose(0, 2, 1) + 3 * np.eye(w, dtype=np.float32)
-    e = np.zeros((r, w), np.float32)
-    e[np.arange(r), rng.integers(0, w, r)] = 1.0
-    # lane-major layout: systems on the last (lane) axis
-    aug = jnp.concatenate(
-        [jnp.transpose(jnp.asarray(a), (1, 2, 0)),
-         jnp.transpose(jnp.asarray(e))[:, None, :]],
-        axis=1,
-    )  # (w, w+1, r)
-    out = pl.pallas_call(
-        partial(_gj_kernel, w=w),
-        grid=1,
-        in_specs=[pl.BlockSpec((w, w + 1, r), lambda i: (0, 0, 0))],
-        out_specs=pl.BlockSpec((w, r), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((w, r), jnp.float32),
-        interpret=True,
-    )(aug)
-    ref = _masked_gauss_jordan_xla(jnp.asarray(a), jnp.asarray(e))
-    np.testing.assert_allclose(np.asarray(out).T, np.asarray(ref),
-                               rtol=1e-4, atol=1e-6)
+    rng = np.random.default_rng(10 + w)
+    n = 6
+    sub = rng.standard_normal((n, w, w)) + 4 * np.eye(w)
+    e = rng.standard_normal((n, w))
+    wts = rng.standard_normal((n, w))
+
+    def loss(solve, s, rhs):
+        return jnp.sum(wts * jnp.sin(solve(s, rhs)))
+
+    def lu(s, rhs):
+        return jnp.linalg.solve(s, rhs[..., None])[..., 0]
+
+    got = jax.grad(lambda s, r: loss(gj.solve_batched, s, r),
+                   argnums=(0, 1))(jnp.asarray(sub), jnp.asarray(e))
+    want = jax.grad(lambda s, r: loss(lu, s, r),
+                    argnums=(0, 1))(jnp.asarray(sub), jnp.asarray(e))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-9, atol=1e-11)

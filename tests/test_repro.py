@@ -70,7 +70,7 @@ def test_downstream_chain_invalidation(tmp_path):
     data = tmp_path / "data"
     data.mkdir()
     (data / "case.npz").write_bytes(b"cases-v1")
-    ckpt = tmp_path / "best.msgpack"
+    ckpt = tmp_path / "best.npz"
     ckpt.write_bytes(b"weights-v1")
     gen = repro.Stage("generate", "g.py", ["n"], deps=[], outs=[data])
     train = repro.Stage("train", "t.py", ["lr"], deps=[data], outs=[ckpt])

@@ -213,13 +213,13 @@ def test_structured_pcg_classical_and_learned():
 # -- polynomial spectral safeguard (VERDICT r4 next #2) ---------------------
 
 def _ckpt():
-    from flax import serialization
+    from deeppreconditioning_tpu.train.trainer import load_checkpoint
     p = (Path(__file__).resolve().parent.parent / "assets"
-         / "checkpoints_structured" / "best.msgpack")
+         / "checkpoints_structured" / "best.npz")
     if not p.exists():
         import pytest
         pytest.skip("structured checkpoint not present")
-    return serialization.msgpack_restore(p.read_bytes())
+    return load_checkpoint(p)
 
 
 def test_poly_safeguard_clamps_root_inside_spectrum():
@@ -302,8 +302,7 @@ def test_safeguard_sigma_sweep_no_breakdowns():
 
 def test_dia_apply_matches_offset_apply_and_sequence_solver():
     """bands_to_dia + make_structured_poly_apply_dia reproduce the
-    offset-form apply exactly (the Pallas kernel shares the XLA
-    matvec's semantics off-TPU), and pcg_sequence_fixed_trips matches
+    offset-form apply exactly, and pcg_sequence_fixed_trips matches
     k independent flat solves."""
     from deeppreconditioning_tpu.data.poisson import (
         poisson_rhs_sequence,

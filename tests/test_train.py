@@ -63,7 +63,7 @@ def test_checkpoint_roundtrip(tmp_path):
     state = TrainState(params, tx.init(params), 0)
     state, _ = train_step(model, tx, state, batch0)
 
-    path = tmp_path / "ckpt.msgpack"
+    path = tmp_path / "ckpt.npz"
     save_checkpoint(path, model, state)
     restored = resume_state(path, tx)
 
